@@ -57,7 +57,7 @@ class Config:
     """Runtime knobs. Defaults reproduce the reference configuration
     (reference: Src/Settings.cpp)."""
 
-    # ---- fixed capacities (TPU static shapes; not in reference) ----
+    # ---- fixed capacities (static device shapes; not in reference) ----
     max_frames: int = 8           # window capacity (ref window max 7 + incoming)
     max_points: int = 2048        # active point capacity
     max_immature: int = 3072      # candidate point capacity

@@ -178,8 +178,8 @@ class LoopCloser:
         """L1-score `q_bow` against a list of BoW vectors, padding the
         database to power-of-two row counts: the database grows with every
         keyframe and a shape-polymorphic jit would compile a fresh scoring
-        executable per size — a multi-second remote-compile stall on the
-        loop-closure worker for EVERY keyframe. Padded rows are zeros
+        executable per size — a compile stall on the loop-closure worker
+        for EVERY keyframe. Padded rows are zeros
         (score 0.5 for an L1-normalized query) and are sliced off."""
         M = len(vecs)
         Mb = 8

@@ -205,8 +205,8 @@ def ba_optimize(
     the name of that axis. Per-point work (linearize, Schur scalars, idepth
     steps, sticky states) stays local to the shard; the camera system
     (H, b, H_sc, b_sc), convergence statistics, energies, and the
-    energy-threshold quantile are reduced with psum/all_gather over ICI —
-    the TPU-native replacement for the reference's per-thread accumulator
+    energy-threshold quantile are reduced with psum/all_gather — the
+    device-mesh replacement for the reference's per-thread accumulator
     shards summed at stitch time (AccumulatedTopHessian.h:122-127)."""
     frames, points = wnd.frames, wnd.points
     F = frames.valid.shape[0]
@@ -445,7 +445,7 @@ def marginalize_points(
                         ind_active=ind_active)
 
     H_top, b_top, H_sc_g, b_sc_g = sys.H, sys.b, H_sc, b_sc
-    if axis is not None:   # point-sharded: reduce the folded blocks over ICI
+    if axis is not None:   # point-sharded: reduce the folded blocks
         H_top = jax.lax.psum(H_top, axis)
         b_top = jax.lax.psum(b_top, axis)
         H_sc_g = jax.lax.psum(H_sc_g, axis)

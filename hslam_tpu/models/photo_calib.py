@@ -5,7 +5,7 @@ The reference declares this capability but ships it fully commented out
 OnlineCalibrator.cpp — dead; the live hook points are the
 PhotoUnDistMode::OnlineCalib enum, GlobalTypes.h:89-95, and
 PhotometricUndistorter::UpdateGamma, photometricUndistorter.cpp:175-200).
-This module implements the capability TPU-natively.
+This module implements the capability as batched device code.
 
 Model (classic online photometric calibration, Bergmann et al. style):
     O_ik = G( e_i * V(r_ik) * L_k )

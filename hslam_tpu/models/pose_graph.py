@@ -3,7 +3,7 @@
 Capability equivalent of the reference's vendored-but-unused g2o pose graph
 (reference: Thirdparty/g2o, linked at CMakeLists.txt:38,111 — loop closure
 and pose-graph relaxation are declared capabilities with no active code,
-SURVEY.md §0). Design is TPU-first:
+SURVEY.md §0). Design is batched and device-first:
 
   * states: (N, 7) sim3 tangent coordinates of world-to-keyframe poses,
     updated by left-multiplied increments;

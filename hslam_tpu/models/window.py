@@ -5,7 +5,7 @@ Re-design of the reference's pointer-graph backend state
 MapPoint/MapPointOptimizationData Include/MapPoint.h, EnergyFunctional
 frames/points/residual lists) as fixed-capacity struct-of-arrays with
 validity masks — insert/delete become mask flips, so every BA step compiles
-once and runs with static shapes on TPU.
+once and runs with static shapes on the device.
 
 Conventions (matching the reference):
   * Frame state `state` is in SOLVER units; natural units =

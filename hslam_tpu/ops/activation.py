@@ -1,6 +1,6 @@
 """Batched candidate-point activation: idepth-only LM against the window.
 
-TPU-native re-design of System::optimizeImmaturePoint
+Batched device re-design of System::optimizeImmaturePoint
 (reference: Src/FullSystemOptPoint.cpp:24-175) and
 ImmaturePoint::linearizeResidual (Src/ImmaturePoint.cpp:389-455): all
 candidates run the `setting_GNItsOnPointActivation` LM iterations in
@@ -39,9 +39,8 @@ def _linearize_idepth(u, v, idepth, color, weights, host,
 
     `window_table` (from ba.build_window_table on the same images): sample
     the 8 taps + gradients from ONE gathered 12x12 window per (cand,
-    target) instead of 32 bilinear gather rows — TPU gathers are per-row
-    bound, and this LM runs `gn_iters_on_activation` sweeps per keyframe
-    (measured ~11 ms of the fused kf_step before, ~3 ms after).
+    target) instead of 32 bilinear gather rows — gathers cost per row, and
+    this LM runs `gn_iters_on_activation` sweeps per keyframe.
     """
     P = u.shape[0]
     F = images.shape[0]
@@ -60,7 +59,7 @@ def _linearize_idepth(u, v, idepth, color, weights, host,
     xh = (up - cx) / fx
     yh = (vp - cy) / fy
     dirs = jnp.stack([xh, yh, jnp.ones_like(xh)], -1)    # (P, 8, 3)
-    # broadcast form, not einsum: (P,F)-batched 3x3 dots pad MXU tiles
+    # broadcast form, not einsum: (P,F)-batched 3x3 dots
     rot = jnp.sum(Rr[:, :, None, :, :] * dirs[:, None, :, None, :], axis=-1)
     ptp = rot + tr[:, :, None, :] * idepth[:, None, None, None]
     drescale = 1.0 / jnp.where(jnp.abs(ptp[..., 2]) < 1e-12, 1e-12, ptp[..., 2])

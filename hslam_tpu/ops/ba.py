@@ -1,6 +1,6 @@
 """Windowed photometric bundle adjustment — device kernels.
 
-The numeric heart of the framework: TPU-native re-design of the reference's
+The numeric heart of the framework: a batched device re-design of the reference's
 EnergyFunctional machinery:
 
   * residual linearization  (Src/OptimizationClasses.cpp:43-233)
@@ -22,7 +22,7 @@ Gauss-Newton system is then
 
     H = sum_r U_r^T (C_r^T C_r) U_r ,   b = sum_r U_r^T C_r^T res_r
 
-— one large MXU matmul over all residuals, mathematically identical to the
+— one large matmul over all residuals, mathematically identical to the
 reference's update/stitchDouble path (the 13x13 'AccumulatorApprox' is
 exactly C^T C in a factored basis). Idepth columns factor the same way,
 giving the per-point scalars Hdd, bd, Hcd and the cross vector g_p used by
@@ -134,10 +134,10 @@ class Linearization(NamedTuple):
 # window tables: one gather row per (point, frame) instead of per pattern tap
 # ---------------------------------------------------------------------------
 #
-# TPU XLA gathers are per-row bound (~25-50ns/row from HBM regardless of row
-# width up to ~512B). linearize() needs I, dx, dy at 8 pattern taps for every
-# (point, target) residual = P*F*8 rows/GN-iteration the naive way — the
-# single hottest op in the whole system. Instead we pre-slice the intensity
+# Gathers cost per row fetched more than per byte. linearize() needs I, dx,
+# dy at 8 pattern taps for every (point, target) residual = P*F*8
+# rows/GN-iteration the naive way — the single hottest op in the whole
+# system. Instead we pre-slice the intensity
 # image into 12x12 windows anchored at even pixel origins (stride 2), gather
 # ONE window row per (point, frame) around the projected pattern center, and
 # reconstruct all 8 bilinear taps AND their central-difference gradients from
@@ -161,9 +161,8 @@ def build_window_table(images: jnp.ndarray) -> jnp.ndarray:
     F, H, W = I.shape
     Ip = jnp.pad(I, ((0, 0), (0, WIN), (0, WIN)))
     # two-stage separable construction: a single 144-slice stack on the minor
-    # axis lowers to 4B scatter-stride writes (60ms measured / 40GB of
-    # buffers at compile); two 12-slice stages with one final transpose stay
-    # contiguous
+    # axis lowers to 4-byte strided scatter writes; two 12-slice stages with
+    # one final transpose stay contiguous
     V = jnp.stack(
         [Ip[:, dy : dy + H : WIN_STRIDE, :] for dy in range(WIN)], axis=0
     )  # (12, F, H//2, W + WIN)
@@ -230,9 +229,9 @@ def _window_taps(window_table, Ku, Kv, Hh, Ww):
     cx = cdiff(ixc, fx)
     cy = cdiff(iyc, fy)
 
-    # broadcast-multiply-sums, NOT einsum/dot: a batched (8,12)@(12,12)
-    # matmul would be padded to 128x128 MXU tiles by XLA (observed 40GB+ of
-    # padded operands); as VPU reductions the intermediates are (P,F,8,12,12)
+    # broadcast-multiply-sums, NOT einsum/dot: these tiny batched matmuls
+    # are kept as elementwise reductions over (P,F,8,12,12) intermediates
+    # (whether einsum is faster on the GPU is open)
     winb = win[:, :, None, :, :]                  # (P, F, 1, y, x)
     tx_w = jnp.sum(wy[..., :, None] * winb, axis=-2)   # (P, F, 8, x)
     tx_c = jnp.sum(cy[..., :, None] * winb, axis=-2)
@@ -312,7 +311,7 @@ def linearize(
         [(points.u - cx) / fx, (points.v - cy) / fy, jnp.ones_like(points.u)],
         axis=-1,
     )  # (P, 3)
-    # broadcast form, not einsum: (P,F)-batched 3x3 matvecs pad MXU tiles
+    # broadcast form, not einsum: (P,F)-batched 3x3 matvecs
     ptp0 = (jnp.sum(Rr0 * KliP[:, None, None, :], axis=-1)
             + tr0 * points.idepth_zero[:, None, None])
     drescale = 1.0 / jnp.where(jnp.abs(ptp0[..., 2]) < 1e-12, 1e-12, ptp0[..., 2])
@@ -551,11 +550,10 @@ def accumulate(
 
     # NOTE on the contraction style throughout this function: every
     # per-residual contraction is written as broadcast-multiply + sum, NOT
-    # einsum/dot. A (P*F)-batched einsum over 4/8/12-sized operands lowers
-    # to batched MXU dots padded to 128x128 tiles (>99% wasted lanes) —
-    # measured 0.73 ms vs 0.03 ms for this block on one v5e. The only real
-    # matmuls (the one-hot host contraction, the Schur g^T g) keep einsum/
-    # dot and the MXU.
+    # einsum/dot, so a (P*F)-batched product of 4/8/12-sized operands never
+    # becomes a batch of tiny padded matmuls. The only real matmuls (the
+    # one-hot host contraction, the Schur g^T g) keep einsum/dot. Whether
+    # einsum is as fast on the GPU has not been measured.
 
     # basis coefficients C (P, F, 8, 4) and products
     C = jnp.concatenate([lin.JIdx, lin.JabF], axis=-1)          # (P, F, 8, 4)
@@ -723,7 +721,7 @@ def nullspace_projector(N: jnp.ndarray, svd_eps: float = 1e-5) -> jnp.ndarray:
     """(D, D) orthogonal projector onto span(N) via SVD pseudo-inverse
     (EnergyFunctional::orthogonalize, EnergyFunctional.cpp:648-702).
     Loop-invariant during one optimize() call — compute once, apply often
-    (small-matrix SVDs are expensive on TPU)."""
+    (small-matrix SVDs are expensive on an accelerator)."""
     norms = jnp.linalg.norm(N, axis=0, keepdims=True)
     Nn = N / jnp.maximum(norms, 1e-12)
     U_, S, Vt = jnp.linalg.svd(Nn, full_matrices=False)

@@ -1,10 +1,10 @@
-"""Bag-of-binary-words place recognition, TPU-native.
+"""Bag-of-binary-words place recognition, batched on the device.
 
 Capability equivalent of the reference's vendored DBoW3
 (reference: Thirdparty/DBow3 — Vocabulary/BowVector/ScoringObject; the
 reference links it and typedefs ORBVocabulary, Include/GlobalTypes.h:217,
 but ships no trained vocabulary: loop closure is a declared capability,
-SURVEY.md §0). Re-designed for TPU:
+SURVEY.md §0). Re-designed as batched array code:
 
   * the vocabulary is a k^L tree of binary centroids stored as dense
     arrays (level-major); training is batched k-medians on descriptor

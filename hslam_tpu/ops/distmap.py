@@ -1,6 +1,6 @@
 """Half-resolution distance map for spatially-spread point activation.
 
-TPU-native reformulation of CoarseDistanceMap
+Batched device reformulation of CoarseDistanceMap
 (reference: Src/CoarseTracker.cpp:698-901): the reference runs a
 40-iteration alternating 4/8-neighborhood BFS (`growDistBFS`, :765-859);
 here the same distance field is produced by 40 iterated masked min-pool

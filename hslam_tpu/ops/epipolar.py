@@ -1,6 +1,6 @@
 """Batched epipolar depth tracing for candidate (immature) points.
 
-TPU-native re-design of ImmaturePoint::traceOn
+Batched device re-design of ImmaturePoint::traceOn
 (reference: Src/ImmaturePoint.cpp:40-360): every candidate point is traced
 against the new frame in parallel — the data-dependent discrete search
 (<= 100 steps along the epipolar line) becomes a fixed (P, 100, 8)
@@ -76,7 +76,7 @@ def trace_on(
 
     skip = (state.status == IPS_OOB) | ~point_valid
 
-    # broadcast form, not einsum: P-batched 3x3 dots pad MXU tiles
+    # broadcast form, not einsum: P-batched 3x3 dots
     uv1 = jnp.stack([u, v, jnp.ones_like(u)], -1)
     pr = jnp.sum(KRKi * uv1[:, None, :], axis=-1)
     ptp_min = pr + Kt * state.idepth_min[:, None]

@@ -1,6 +1,6 @@
 """Multi-scale feature frontend: the indirect (feature) pyramid, batched.
 
-TPU-native re-design of the reference's per-frame indirect layer:
+Batched device re-design of the reference's per-frame indirect layer:
 
   * CV_8U 1.2x-scale "indirect" pyramid with a 19-px usable border
     (reference: Src/Frame.cpp:57-74 CreateIndPyrs, Include/CalibData.h:170-188
@@ -12,7 +12,7 @@ TPU-native re-design of the reference's per-frame indirect layer:
   * grid-bucketed radius queries over the keypoints
     (Frame::GetFeaturesInArea, Src/Frame.cpp:255-303).
 
-TPU formulation: the per-keypoint work is ONE dynamic-slice patch gather per
+Device formulation: the per-keypoint work is ONE dynamic-slice patch gather per
 keypoint from the blurred level image; orientation moments are in-register
 reductions over that patch; descriptor sampling uses rotation-QUANTIZED
 static index tables (16 orientation bins, pattern offsets rounded to the
@@ -42,7 +42,7 @@ _BRIEF_R = 14.0         # max BRIEF tap radius (pre-rotation == post-rotation)
 N_BINS = 16             # orientation quantization bins
 N_PAIRS = 256
 
-# keypoints need the full patch inside the image: this is the TPU analogue
+# keypoints need the full patch inside the image: this is the analogue
 # of the reference's 19-px indirect-pyramid border (Frame.cpp:57-74)
 BORDER = PATCH_C + 2
 
@@ -87,7 +87,7 @@ def _brief_pattern_clipped(seed: int = 42) -> np.ndarray:
 def _rotated_index_tables() -> np.ndarray:
     """(N_BINS, N_PAIRS, 2) int32 flattened-patch indices of the two taps of
     every BRIEF pair, pre-rotated per orientation bin and rounded to the
-    patch grid (the TPU replacement for per-keypoint rotated sampling,
+    patch grid (the batched replacement for per-keypoint rotated sampling,
     Detector.cpp computeOrbDescriptor)."""
     pat = _brief_pattern_clipped()
     out = np.zeros((N_BINS, N_PAIRS, 2), np.int32)
@@ -306,8 +306,8 @@ def features_in_area(
     """GetFeaturesInArea (Frame.cpp:255-303) as a batched masked query:
     (Q, NF) bool — True where keypoint j is within `radius` of query i and
     inside the level band. The reference's 10-px cell grid is an O(1) CPU
-    shortcut; on TPU the dense (Q, NF) mask IS the efficient form (one VPU
-    pass, no data-dependent control flow)."""
+    shortcut; on the device the dense (Q, NF) mask IS the efficient form
+    (one elementwise pass, no data-dependent control flow)."""
     d2 = ((u[:, None] - f_u[None, :]) ** 2
           + (v[:, None] - f_v[None, :]) ** 2)
     lv_ok = (f_level >= min_level) & (f_level <= max_level)

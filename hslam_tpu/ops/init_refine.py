@@ -1,6 +1,6 @@
 """Direct photometric refinement of the two-view bootstrap.
 
-TPU-native re-design of the reference's DirectRefinement
+Batched device re-design of the reference's DirectRefinement
 (Src/Initializer.cpp:1330-2314): after the indirect two-view reconstruction
 (H/F RANSAC + triangulation), jointly refine the relative pose, affine
 brightness, and per-feature inverse depths with a level-0 photometric LM —

@@ -1,6 +1,6 @@
 """Batched pyramidal Lucas-Kanade optical flow.
 
-TPU-native replacement for the reference's cv::calcOpticalFlowPyrLK use in
+Batched device replacement for the reference's cv::calcOpticalFlowPyrLK use in
 the two-view initializer (reference: Src/Initializer.cpp:341-398): all
 features track in parallel; per level a fixed number of masked GN
 iterations on a WIN x WIN patch.

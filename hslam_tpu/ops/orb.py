@@ -1,6 +1,6 @@
 """ORB-style feature detection and binary descriptors, batched.
 
-TPU-native re-design of the reference FeatureDetector
+Batched device re-design of the reference FeatureDetector
 (reference: Src/Detector.cpp): FAST corner response as a dense map (16
 shifted-image comparisons + contiguous-arc test instead of per-pixel
 branching), IC_Angle orientation by intensity centroid (:133-159), rBRIEF
@@ -66,7 +66,7 @@ def fast_score(img: jnp.ndarray, threshold: float) -> jnp.ndarray:
 
 def grid_nms(score: jnp.ndarray, cell: int, capacity: int,
              min_score: float = 1e-6) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Per-cell argmax + global top-k — the TPU replacement for SSC's
+    """Per-cell argmax + global top-k — the batched replacement for SSC's
     adaptive binary-search suppression (Detector.cpp:451-553): uniform
     spatial coverage with bounded output, branch-free.
 

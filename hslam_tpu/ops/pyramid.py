@@ -1,46 +1,24 @@
 """Image pyramid construction for the direct (photometric) pipeline.
 
-TPU-native equivalent of the reference's per-frame pyramid build
+Device equivalent of the reference's per-frame pyramid build
 (reference: Src/Frame.cpp:104-181 `CreateDirPyrs`): per level, the image is
 2x2-average downsampled, then per-pixel central-difference gradients (dx, dy)
 and the gradient-magnitude map `absSquaredGrad` are computed, the latter
 optionally re-weighted by the photometric response derivative
 (Frame.cpp:158-164 via `getBGradOnly`).
 
-On TPU the per-level pass dispatches to the fused Pallas kernel
-(ops/pallas_kernels.py): one VMEM-resident launch produces downsample, dx,
-dy and |grad|^2 together (measured 32us vs 218us for the XLA emission per
-640x480 6-level pyramid on one v5e). Elsewhere (CPU tests, tiny images,
-non-f32 inputs) the jnp path below is used; both are parity-tested against
-each other (tests/test_pallas.py).
+Plain jnp: XLA fuses each level's passes itself. A hand-written fused
+level kernel (Pallas, Triton route) was measured on the H100 and was not
+faster end to end inside track_step, so there is none.
 
 Static shapes: levels are a Python-level list (each level has a different
 shape, which XLA requires to be static anyway).
 """
 from __future__ import annotations
 
-import os
 from typing import List, Tuple
 
-import jax
 import jax.numpy as jnp
-
-
-def _pallas_mode() -> str:
-    """'on' (TPU kernel), 'interp' (interpreter-mode kernel, for tests of
-    the dispatch path on CPU), or 'off'. HSLAM_PALLAS=0/1/interp overrides
-    the default (auto: on iff the backend is TPU)."""
-    env = os.environ.get("HSLAM_PALLAS", "").strip().lower()
-    if env in ("0", "off", "false"):
-        return "off"
-    if env == "interp":
-        return "interp"
-    if env in ("1", "on", "true"):
-        return "on"
-    try:
-        return "on" if jax.default_backend() == "tpu" else "off"
-    except Exception:  # pragma: no cover
-        return "off"
 
 
 def downsample2(img: jnp.ndarray) -> jnp.ndarray:
@@ -83,19 +61,6 @@ def build_direct_pyramid(
         pyr: list of (H_l, W_l, 3) arrays [I, dx, dy] per level.
         abs_grad2: list of (H_l, W_l) squared-gradient-magnitude maps.
     """
-    mode = _pallas_mode()
-    if (
-        mode != "off"
-        and image.ndim == 2
-        and image.dtype == jnp.float32
-        # every level the kernel touches must stay >= 2x2
-        and min(image.shape) >> max(n_levels - 1, 0) >= 2
-    ):
-        from .pallas_kernels import build_direct_pyramid_pallas
-
-        return build_direct_pyramid_pallas(
-            image, n_levels, gamma_grad_weight, interpret=(mode == "interp")
-        )
     levels = []
     grads = []
     img = image

@@ -1,6 +1,6 @@
 """Gradient-based candidate pixel selection.
 
-TPU-native re-design of DSO's PixelSelector
+Batched device re-design of DSO's PixelSelector
 (reference: Src/PixelSelector.cpp): the per-32x32-block gradient histogram
 threshold (makeHists, :54-117) becomes a one-hot bincount + cumsum
 quantile; the 3-tier nested scan (select, :271-414) becomes hierarchical
@@ -123,9 +123,8 @@ def select_pixels(
     def _up(a, f):
         """Nearest-neighbor upsample by integer factor f, cropped/edge-
         padded to (H, W). Equivalent to the gather a[y//f, x//f] but lowers
-        to broadcast+reshape instead of a 300k-element gather (the three
-        full-image gathers here were ~10 ms of the measured selector
-        cost on one v5e)."""
+        to broadcast+reshape instead of a 300k-element gather (three
+        full-image gathers per call)."""
         u = jnp.repeat(jnp.repeat(a, f, axis=0), f, axis=1)
         ph, pw = max(0, H - u.shape[0]), max(0, W - u.shape[1])
         if ph or pw:

@@ -4,7 +4,7 @@ camera systems.
 The scaling story the reference lacks (SURVEY.md §2.8 item 6, §5): residual
 linearization and Hessian accumulation are embarrassingly parallel over
 points, so points shard across the device mesh; the (4+8F)^2 camera system
-and the Schur terms are psum-reduced over ICI, each device solves the tiny
+and the Schur terms are psum-reduced across devices, each device solves the tiny
 replicated system, and idepth back-substitution stays local to the shard.
 One step == one GN iteration of models/optimizer.ba_optimize.
 """
@@ -52,7 +52,7 @@ def sharded_ba_optimize(mesh: Mesh, wnd: W.Window, calib: Calib, cfg: Config,
     the newest keyframe, energy thresholds, final fixing pass) under a
     point-sharded shard_map: every device linearizes and Schur-eliminates
     its point shard; the (4+8F)^2 camera system, convergence stats, and the
-    energy quantile ride ICI collectives each iteration. Frames/calib/HM/bM
+    energy quantile ride collectives each iteration. Frames/calib/HM/bM
     are replicated; all per-point state stays on its shard."""
     wnd_spec = W.Window(frames=_replicated(wnd.frames), points=_points_spec(),
                         HM=P(), bM=P())
@@ -124,7 +124,7 @@ def sharded_ba_step(mesh: Mesh, wnd: W.Window, calib: Calib, cfg: Config):
         pt_active = (points.status == W.PT_ACTIVE) & (jnp.sum(active, axis=1) > 0)
         H_sc_loc, b_sc_loc, HdiF = ba.schur_complement(sys, points.prior, pt_active)
 
-        # reduce the camera system over the point shards (rides ICI)
+        # reduce the camera system over the point shards
         H = jax.lax.psum(sys.H, "points")
         b = jax.lax.psum(sys.b, "points")
         H_sc = jax.lax.psum(H_sc_loc, "points")

@@ -5,7 +5,7 @@ Multi-chip path for KITTI-length loop-closure graphs (north-star config
 per-edge Jacobian blocks and segment-sums, so edges partition across the
 device mesh; each device keeps the full replicated (N, 7) node vectors
 (tiny — 280 KB at 10k keyframes) and psums its partial gradient /
-preconditioner / H·x contributions over ICI. The reference's g2o pose
+preconditioner / H·x contributions across devices. The reference's g2o pose
 graph (Thirdparty/g2o, declared capability — SURVEY.md §0) is
 single-threaded sparse Cholesky; this is the same math re-laid-out so a
 multi-chip mesh splits the edge set.

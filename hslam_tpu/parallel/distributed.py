@@ -1,20 +1,19 @@
-"""Multi-host runtime initialization.
+"""Multi-process runtime initialization.
 
 The reference scales with threads inside one process (IndexThreadReduce,
-Src/Mapping.cpp); the TPU-native scaling unit is processes-on-hosts ×
-chips-per-host under `jax.distributed`. This module is the one place that
-knows how to bring that runtime up:
+Src/Mapping.cpp); here the scaling unit is processes × devices per process
+under `jax.distributed`. This module is the one place that knows how to
+bring that runtime up:
 
-  * `initialize()` — wraps jax.distributed.initialize with env-var
-    auto-detection (JAX on TPU pods / GKE sets everything itself;
-    explicit coordinator/rank arguments cover ad-hoc CPU/GPU clusters).
+  * `initialize()` — wraps jax.distributed.initialize with an explicit
+    coordinator address, process count and rank (nothing in a plain GPU
+    host or a CPU cluster tells JAX these by itself).
   * `global_mesh(axis)` — one named axis over every global device, the
     shape the point-sharded BA (parallel/dist_ba.py) and the edge-sharded
     pose graph (parallel/dist_pose_graph.py) consume. Devices are ordered
-    so that shards land process-local first: each host's points stay on
-    its own chips and cross-host traffic is only the psum'd camera
-    system (a few hundred KB), which is what lets the reductions ride
-    ICI within a pod slice instead of DCN.
+    process-local first, so each process's points stay on its own devices
+    and only the psum'd camera system (a few hundred KB) crosses between
+    processes.
 
 Single-process use never needs this module — every sharded entry point
 takes an explicit Mesh.
@@ -31,20 +30,14 @@ from jax.sharding import Mesh
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Bring up the multi-host runtime. No-op if already initialized or if
-    running single-process with no coordinator configured.
-
-    On TPU pods (and any environment with cluster env vars such as
-    JAX_COORDINATOR_ADDRESS / MEGASCALE_* / GKE metadata),
-    jax.distributed.initialize() auto-detects everything; arguments are
-    only needed for hand-rolled clusters."""
+    """Bring up the multi-process runtime. No-op if already initialized or
+    if running single-process with no coordinator configured
+    (`coordinator_address` falls back to $JAX_COORDINATOR_ADDRESS)."""
     if getattr(jax.distributed, "is_initialized", lambda: False)():
         return
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
-    auto = os.environ.get("MEGASCALE_COORDINATOR_ADDRESS") or os.environ.get(
-        "TPU_WORKER_HOSTNAMES")
-    if coordinator_address is None and num_processes is None and auto is None:
+    if coordinator_address is None and num_processes is None:
         return  # single-process run: nothing to initialize
     kwargs = {}
     if coordinator_address is not None:

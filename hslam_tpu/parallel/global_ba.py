@@ -9,7 +9,7 @@ landmark depths, partitioned across the device mesh by KEYFRAME BLOCK.
 There is no reference implementation to mirror — the reference is a
 single-process sliding-window system (SURVEY.md §5 "long-context":
 `ReduceToEssential`, Frame.cpp:194-253, throws the data away instead) —
-so this is designed from scratch for the TPU:
+so this is designed from scratch for a device mesh:
 
   * State: world-to-cam SE3 poses (N, ...) + per-landmark inverse depth
     (P,) in the HOST keyframe (the DSO parametrization — one scalar per
@@ -25,7 +25,7 @@ so this is designed from scratch for the TPU:
     of keyframes (and every landmark hosted in it, with all its
     observations) goes to each device. Per-CG-iteration reductions
     (gradient, Hx, preconditioner blocks, chi^2) psum the (N, 6) vectors
-    over ICI — tiny (12 KB at N=512) — while the observation work scales
+    across devices — tiny (12 KB at N=512) — while the observation work scales
     out with the mesh. Cross-block observations need no communication:
     target poses are replicated, only the reductions ride the collective.
   * Gauge: pose 0 pinned (6 dofs) + a soft idepth prior (monocular scale).
@@ -387,7 +387,7 @@ def sharded_global_ba(mesh: Mesh, p: GlobalBA, K, n_iters: int = 5,
                       cg_iters: int = 100, huber_px: float = 3.0,
                       rho_prior: float = 1.0):
     """global_ba with landmarks + observations sharded over the mesh axis
-    (poses replicated; per-CG-iteration (N,6) reductions psum over ICI).
+    (poses replicated; per-CG-iteration (N,6) reductions psum across devices).
     The problem MUST be laid out by `partition_problem(p, mesh.size)`
     first: equal-sized landmark blocks by host keyframe with every
     landmark's observations on its own shard."""

@@ -1,6 +1,6 @@
 """Fixed-capacity slot allocation for masked SoA state.
 
-The reference mutates pointer lists (push_back / erase); with static TPU
+The reference mutates pointer lists (push_back / erase); with static device
 shapes, insert/delete become mask flips plus this helper: pair the j-th
 valid candidate with the j-th free slot, in index order.
 """

@@ -80,9 +80,9 @@ def pack_cells(img: jnp.ndarray) -> jnp.ndarray:
     """Pack each pixel's 2x2 interpolation cell into channels:
     (H, W) -> (H, W, 4) = [I(y,x), I(y,x+1), I(y+1,x), I(y+1,x+1)].
 
-    Bilinear sampling then needs ONE row gather instead of four — XLA/TPU
-    gathers are per-row scalar-unit bound, so this is ~4x on gather-heavy
-    kernels (epipolar search, tracker warp). Last row/col duplicate their
+    Bilinear sampling then needs ONE row gather instead of four — gathers
+    cost per row fetched, so this cuts the gather rows of gather-heavy
+    kernels (epipolar search, tracker warp) by 4x. Last row/col duplicate their
     neighbors (samples are clamped to W-2/H-2 anyway)."""
     r = jnp.concatenate([img[:, 1:], img[:, -1:]], axis=1)
     d = jnp.concatenate([img[1:, :], img[-1:, :]], axis=0)

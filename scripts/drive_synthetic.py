@@ -2,7 +2,7 @@
 
 Usage:
     JAX_PLATFORMS=cpu python scripts/drive_synthetic.py   # CPU (fast check)
-    python scripts/drive_synthetic.py                      # real TPU chip
+    python scripts/drive_synthetic.py                      # the GPU
 
 Builds a synthetic two-frame scene (textured fronto-parallel plane), then:
   1. builds direct pyramids,

@@ -6,7 +6,7 @@ The observability surface the reference puts in a Pangolin GL window
 here it is a zero-dependency ANSI dashboard that *follows* the JSONL
 metrics stream written by `SLAMSystem(metrics_path=...)` (and
 `scripts/run_sequence.py --metrics`), so the viewer runs out-of-process —
-including on a workstation tailing a file the TPU host is writing — and
+including on a workstation tailing a file the GPU host is writing — and
 costs the pipeline nothing.
 
 Shows: a braille top-down (X–Z) trajectory map with keyframe and

@@ -1,4 +1,4 @@
-"""Long-sequence drift test (round-1 verdict item 7): 500 frames of a slow
+"""Long-sequence drift test: 500 frames of a slow
 lissajous sweep over the textured plane with mild exposure flicker.
 
 Exercises, in one run: the mode-1 linearized-residual FEJ chain over ~85
@@ -8,8 +8,8 @@ loop-closure pipeline (BoW detect + PnP + significance/consistency gates
 sub-noise-floor corrections: round-4 measurement showed micro-corrections
 turning ATE 0.07 into 0.38), and the affine brightness model (flicker).
 Pure-odometry reference ATE: 0.069 at scene depth 2.0; silent
-FEJ/marginalization drift bugs — the error class called out in the
-verdict — blow well past the bound.
+FEJ/marginalization drift bugs — the error class a short run cannot
+see — blow well past the bound.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -61,6 +61,6 @@ def test_500_frame_drift_bounded():
     err = ate_rmse(np.array([g[:3, 3] for g in gt_all]),
                    np.array([e[:3, 3] for e in est_all]))
     # calibrated: 0.155 on a clean run (depth 2.0); gate at 1.3x calibrated
-    # (VERDICT r4 weak #8: a 2x gate hides sub-2x regressions) — FEJ drift
-    # bugs blow far past either bound
+    # (a 2x gate would hide regressions smaller than 2x) — FEJ drift bugs
+    # blow far past either bound
     assert np.isfinite(err) and err < 0.20, f"long-run drift ATE {err}"

@@ -67,7 +67,7 @@ def test_recovers_exposures_and_response():
 
 @pytest.mark.slow
 def test_online_calibration_in_live_system():
-    """VERDICT item 4 'done' criterion: run the LIVE system on a synthetic
+    """Online calibration end to end: run the LIVE system on a synthetic
     sequence whose raw frames carry a ground-truth gamma + vignette; the
     online calibrator must produce a monotone response estimate whose
     inverse de-gammas better than identity, and the system must keep

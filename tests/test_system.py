@@ -389,8 +389,8 @@ def test_end_to_end_pipelined_async():
 
 
 def test_input_skip_dt_scaled_tracking():
-    """Fast-lane end-to-end smoke (VERDICT r4 #10) AND the paced-load
-    regression test (VERDICT r4 #1): the realtime driver skips input
+    """Fast-lane end-to-end smoke of the pipelined path AND the paced-load
+    regression test: the realtime input loop skips input
     frames when behind (Main.cpp:91-106), so consecutive PROCESSED frames
     can be several camera periods apart. The motion hypotheses must scale
     the constant-velocity twist by the timestamp-gap ratio — without that
