@@ -23,6 +23,7 @@ printed only when every check passed; otherwise the exit code is 1.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import subprocess
 import sys
@@ -42,6 +43,7 @@ TOL_SHARDED_REL = 1e-4  # four-card BA vs one card: rmse and frame states
 ATE_MAX = 0.08
 WARMUP, ARC = 30, 80
 PHOTOCAL_FRAMES = 40
+WATCHDOG_S = 1150      # dump every thread's stack and exit 1
 
 
 FAILED: list = []   # messages of the checks and phases that failed
@@ -313,9 +315,13 @@ def four_cards(devices, cfg, height, width, n_iter=6):
     prior = float(np.median(np.diag(H0)[CPARS:]))
     wnd = wnd._replace(frames=wnd.frames._replace(
         prior=np.full(wnd.frames.prior.shape, prior, np.float32)))
+    t0 = time.perf_counter()
     one = jax.device_get(_on(devices[0], lambda w, c: ba_optimize(
         w, c, cfg, n_iter), wnd, calib))
+    t1 = time.perf_counter()
     four = jax.device_get(sharded_ba_optimize(mesh, wnd, calib, cfg, n_iter))
+    print(f"ba_optimize one device {t1 - t0:.2f} s, sharded on 4 devices "
+          f"{time.perf_counter() - t1:.2f} s (compile included)", flush=True)
     e_rmse = abs(float(four.rmse) - float(one.rmse)) / abs(float(one.rmse))
     s1, s4 = np.asarray(one.window.frames.state), np.asarray(
         four.window.frames.state)
@@ -328,7 +334,9 @@ def four_cards(devices, cfg, height, width, n_iter=6):
     check(e_state <= TOL_SHARDED_REL,
           f"sharded BA frame states rel err {e_state:.3g} "
           f"(tol {TOL_SHARDED_REL:g})")
+    t0 = time.perf_counter()
     dryrun_multichip(4)
+    print(f"dryrun_multichip(4) {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -346,6 +354,8 @@ def main(argv=None) -> int:
     if missing:
         print(f"FAIL {missing}", flush=True)
         return 1
+    # a hang shows where it is, and fails the run inside its time limit
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     d0 = devices[0]
     print(f"device {d0.platform} {d0.device_kind} count {len(devices)} "
           f"jax {jax.__version__}", flush=True)

@@ -58,7 +58,4 @@ def ensure_compile_cache():
     if "JAX_COMPILATION_CACHE_DIR" not in _os.environ:
         # JAX reads the variable itself when it is set
         _jax.config.update("jax_compilation_cache_dir", cache_dir)
-    # the init path and the precompile set hold many sub-second compiles;
-    # caching those too is what makes a warm start short
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     return cache_dir

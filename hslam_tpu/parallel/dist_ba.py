@@ -14,9 +14,8 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import shard_map
-from jax.sharding import Mesh, NamedSharding
+from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
 from ..config import CPARS, Config
@@ -45,6 +44,7 @@ def _replicated(tree):
     return jax.tree.map(lambda _: P(), tree)
 
 
+@partial(jax.jit, static_argnames=("mesh", "cfg"))
 def sharded_ba_optimize(mesh: Mesh, wnd: W.Window, calib: Calib, cfg: Config,
                         n_iter) -> BAResult:
     """The FULL windowed GN optimize (models/optimizer.ba_optimize — the
@@ -53,7 +53,11 @@ def sharded_ba_optimize(mesh: Mesh, wnd: W.Window, calib: Calib, cfg: Config,
     point-sharded shard_map: every device linearizes and Schur-eliminates
     its point shard; the (4+8F)^2 camera system, convergence stats, and the
     energy quantile ride collectives each iteration. Frames/calib/HM/bM
-    are replicated; all per-point state stays on its shard."""
+    are replicated; all per-point state stays on its shard.
+
+    Jitted, so a call outside another jit compiles one program: a
+    shard_map called eagerly runs op by op and recompiles its loop bodies
+    on every call. Numpy inputs are replicated on multi-process meshes."""
     wnd_spec = W.Window(frames=_replicated(wnd.frames), points=_points_spec(),
                         HM=P(), bM=P())
     out_spec = BAResult(
@@ -69,15 +73,10 @@ def sharded_ba_optimize(mesh: Mesh, wnd: W.Window, calib: Calib, cfg: Config,
     def opt(wnd_l, calib_l, n):
         return ba_optimize(wnd_l, calib_l, cfg, n, axis="points")
 
-    # Plain ints become np scalars (not committed device arrays):
-    # multi-process meshes treat numpy inputs as replicated, device arrays
-    # as local-only. Tracers/arrays pass through untouched — kf_step calls
-    # this inside its own jit with a traced iteration count.
-    if isinstance(n_iter, (int, np.integer)):
-        n_iter = np.int32(n_iter)
     return opt(wnd, calib, n_iter)
 
 
+@partial(jax.jit, static_argnames=("mesh", "cfg"))
 def sharded_marginalize_points(mesh: Mesh, wnd: W.Window, calib: Calib,
                                to_marg, to_drop, cfg: Config) -> W.Window:
     """marginalize_points with the flagged points' Schur-reduced blocks
@@ -95,6 +94,7 @@ def sharded_marginalize_points(mesh: Mesh, wnd: W.Window, calib: Calib,
     return marg(wnd, calib, to_marg, to_drop)
 
 
+@partial(jax.jit, static_argnames=("mesh", "cfg"))
 def sharded_ba_step(mesh: Mesh, wnd: W.Window, calib: Calib, cfg: Config):
     """Run one point-sharded GN step on `mesh` (axis name 'points').
 

@@ -44,6 +44,8 @@ def pad_edges(pg: PoseGraph, multiple: int) -> PoseGraph:
     )
 
 
+@partial(jax.jit, static_argnames=("mesh", "n_iters", "cg_iters",
+                                   "fix_scale"))
 def sharded_optimize_pose_graph_pcg(mesh: Mesh, pg: PoseGraph,
                                     n_iters: int = 10, cg_iters: int = 150,
                                     cg_tol: float = 1e-8, lam: float = 1e-6,
@@ -51,7 +53,8 @@ def sharded_optimize_pose_graph_pcg(mesh: Mesh, pg: PoseGraph,
     """optimize_pose_graph_pcg with the edge arrays sharded over the mesh
     axis "edges" and every edge reduction psum'd. Node states stay
     replicated; returns replicated (s, R, t) identical (up to psum
-    summation order) to the single-device solver."""
+    summation order) to the single-device solver. Jitted for the reason
+    given at dist_ba.sharded_ba_optimize."""
     axis = mesh.axis_names[0]
     pg = pad_edges(pg, mesh.size)
 

@@ -208,3 +208,36 @@ def test_sharded_pose_graph_matches_single_device():
     pgp = pad_edges(pg, 8)
     sp, Rp, tp = optimize_pose_graph_pcg(pgp, n_iters=8, cg_iters=400)
     np.testing.assert_allclose(np.asarray(sp), np.asarray(s1), rtol=1e-5)
+
+
+def _sharded_ba_call(mesh):
+    from test_ba import make_synthetic_window
+    from hslam_tpu.parallel.dist_ba import sharded_ba_optimize
+
+    wnd, calib, cfg = make_synthetic_window()
+    return sharded_ba_optimize, lambda: sharded_ba_optimize(
+        mesh, wnd, calib, cfg, 2)
+
+
+def _sharded_pose_graph_call(mesh):
+    from test_loop import _build_circle_sim3
+    from hslam_tpu.parallel.dist_pose_graph import (
+        sharded_optimize_pose_graph_pcg)
+
+    pg = _build_circle_sim3(17, scale_drift=1.002, noise=0.005)
+    return sharded_optimize_pose_graph_pcg, lambda: (
+        sharded_optimize_pose_graph_pcg(mesh, pg, n_iters=2, cg_iters=20))
+
+
+@pytest.mark.parametrize("make_call", [_sharded_ba_call,
+                                       _sharded_pose_graph_call])
+def test_sharded_entry_point_compiles_once(make_call):
+    """Called outside a jit, a sharded entry point is one compiled program
+    reused across calls: an eager shard_map runs op by op and recompiles
+    its loop bodies on every call, which took minutes per call on GPUs."""
+    mesh = Mesh(np.array(jax.devices()[:8]), ("points",))
+    fn, call = make_call(mesh)
+    jax.block_until_ready(call())
+    n_compiled = fn._cache_size()
+    jax.block_until_ready(call())
+    assert n_compiled >= 1 and fn._cache_size() == n_compiled
